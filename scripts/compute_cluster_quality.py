@@ -3,10 +3,10 @@
 
 Counterpart of the reference's scripts/compute_cluster_quality.py (C17).
 Truth classes come from a TSV (``acc<TAB>class``) or from a BAM via the
-pure-Python reader (ngspeciesid_tpu/io/bam.py): overlap-interval classes
+pure-Python reader (ngspeciesid/io/bam.py): overlap-interval classes
 for real data (reference :27-93) or reference-name classes with
 --simulated (reference :96-101).  Metrics are computed by
-ngspeciesid_tpu.eval.
+ngspeciesid.eval.
 
 Usage:
   python scripts/compute_cluster_quality.py --clusters final_clusters.tsv \
@@ -19,7 +19,7 @@ import sys
 
 sys.path.insert(0, ".")
 
-from ngspeciesid_tpu.eval import evaluate, read_clusters_tsv
+from ngspeciesid.eval import evaluate, read_clusters_tsv
 
 
 def read_classes_tsv(path):
@@ -52,7 +52,7 @@ def main():
     if args.classes:
         classes = read_classes_tsv(args.classes)
     else:
-        from ngspeciesid_tpu.io.bam import (
+        from ngspeciesid.io.bam import (
             classes_from_intervals,
             classes_from_ref_names,
         )

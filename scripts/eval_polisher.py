@@ -15,7 +15,7 @@ This is the prove-or-demote experiment for SURVEY.md N6 (reference
 consensus.py:94-105): the table decides whether medaka model names map to
 the GRU or to the deterministic caller.
 
-Usage: python scripts/eval_polisher.py [--params ngspeciesid_tpu/data/polisher_gru.npz]
+Usage: python scripts/eval_polisher.py [--params ngspeciesid/data/polisher_gru.npz]
 """
 
 import argparse
@@ -27,10 +27,10 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, ".")
 
-from ngspeciesid_tpu.models.train import load_params, mutate
-from ngspeciesid_tpu.models.polisher import neural_polish_round
-from ngspeciesid_tpu.ops.poa import polish_round
-from ngspeciesid_tpu.ops.edit import _dp_rows
+from ngspeciesid.models.train import load_params, mutate
+from ngspeciesid.models.polisher import neural_polish_round
+from ngspeciesid.ops.poa import polish_round
+from ngspeciesid.ops.edit import _dp_rows
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -67,7 +67,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--params",
                     default=os.path.join(os.path.dirname(__file__), "..",
-                                         "ngspeciesid_tpu", "data",
+                                         "ngspeciesid", "data",
                                          "polisher_gru.npz"))
     ap.add_argument("--n_templates", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Monte-Carlo generator for the shared-minimizer probability table (C18).
 
-Regenerates the empirical table shipped as ngspeciesid_tpu/data/p_minimizers.npz
+Regenerates the empirical table shipped as ngspeciesid/data/p_minimizers.npz
 from scratch: for each (k, w, e1, e2), two indel-mutated copies of a random
 1000-nt template are homopolymer-compressed and the fraction of copy-1
 minimizers found among copy-2's minimizers within +-500 positions is averaged
@@ -22,8 +22,8 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from ngspeciesid_tpu.ops.minimizers import alphabet_ranks, sequence_minimizers
-from ngspeciesid_tpu.utils.seqs import hpol_compress_bytes
+from ngspeciesid.ops.minimizers import alphabet_ranks, sequence_minimizers
+from ngspeciesid.utils.seqs import hpol_compress_bytes
 
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 RANK_OF, RANK_BITS = alphabet_ranks(ACGT)

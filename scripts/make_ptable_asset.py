@@ -5,7 +5,7 @@ The reference ships 41,880 Monte-Carlo tuples ``(k, w, p, e1, e2)`` embedded
 as a 1.7 MB Python literal (reference modules/p_minimizers_shared.py; generated
 by scripts/compute_shared_minimizer_probabilities.py).  We carry the same
 *data* as a compressed npz of typed arrays — loaded at startup by
-ngspeciesid_tpu/utils/ptable.py.  The table can be regenerated from scratch
+ngspeciesid/utils/ptable.py.  The table can be regenerated from scratch
 with scripts/generate_p_table.py (our own generator).
 
 Usage: python scripts/make_ptable_asset.py [reference_table.py] [out.npz]
@@ -17,7 +17,7 @@ import sys
 import numpy as np
 
 SRC = sys.argv[1] if len(sys.argv) > 1 else "/root/reference/modules/p_minimizers_shared.py"
-DST = sys.argv[2] if len(sys.argv) > 2 else "ngspeciesid_tpu/data/p_minimizers.npz"
+DST = sys.argv[2] if len(sys.argv) > 2 else "ngspeciesid/data/p_minimizers.npz"
 
 
 def main():

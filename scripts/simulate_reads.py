@@ -19,8 +19,8 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from ngspeciesid_tpu.io.fastx import read_fastx
-from ngspeciesid_tpu.utils.seqs import reverse_complement
+from ngspeciesid.io.fastx import read_fastx
+from ngspeciesid.utils.seqs import reverse_complement
 
 ACGT = "ACGT"
 IUPAC_CONCRETE = {

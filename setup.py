@@ -1,16 +1,16 @@
 from setuptools import find_packages, setup
 
 setup(
-    name="ngspeciesid-tpu",
+    name="ngspeciesid",
     version="0.1.0",
-    description="TPU-native amplicon species-ID engine (clustering + consensus + polishing)",
+    description="Amplicon species-ID engine in JAX (clustering + consensus + polishing)",
     packages=find_packages(exclude=("tests", "tests.*")),
-    package_data={"ngspeciesid_tpu": ["data/*.npz"]},
+    package_data={"ngspeciesid": ["data/*.npz", "native/*.cpp", "native/*.cu"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     entry_points={
         "console_scripts": [
-            "NGSpeciesID-tpu=ngspeciesid_tpu.cli:main_and_exit",
+            "NGSpeciesID-jax=ngspeciesid.cli:main_and_exit",
         ]
     },
 )

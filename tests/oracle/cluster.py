@@ -3,7 +3,7 @@
 A direct, loop-based implementation of the reference's greedy clustering
 control flow (SURVEY.md C4/C5/C7/C8; reference cluster.py:207-353), used to
 differential-test the wave-batched engine.  It shares the alignment backend
-(ngspeciesid_tpu.ops.align) with the engine so that any disagreement isolates
+(ngspeciesid.ops.align) with the engine so that any disagreement isolates
 the orchestration, not DP tie-breaking.
 """
 
@@ -14,9 +14,9 @@ from operator import mul
 
 import numpy as np
 
-from ngspeciesid_tpu.ops.align import block_aligned_stats, match_vector, sg_align_numpy
-from ngspeciesid_tpu.utils.phred import PHRED_TO_P_CAPPED
-from ngspeciesid_tpu.utils.seqs import seq_bytes
+from ngspeciesid.ops.align import block_aligned_stats, match_vector, sg_align_numpy
+from ngspeciesid.utils.phred import PHRED_TO_P_CAPPED
+from ngspeciesid.utils.seqs import seq_bytes
 
 from .minimizers import minimizers as get_minimizers
 from .stage1 import hpol_compress

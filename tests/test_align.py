@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.ops.align import (
+from ngspeciesid.ops.align import (
     DIAG, LEFT, UP,
     block_aligned_stats,
     identity_from_moves,
@@ -12,7 +12,7 @@ from ngspeciesid_tpu.ops.align import (
     sg_align_numpy,
     sg_dp_numpy,
 )
-from ngspeciesid_tpu.utils.seqs import seq_bytes
+from ngspeciesid.utils.seqs import seq_bytes
 
 
 def rand_seq(rng, n):

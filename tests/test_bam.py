@@ -5,7 +5,7 @@ import struct
 
 import pytest
 
-from ngspeciesid_tpu.io.bam import (
+from ngspeciesid.io.bam import (
     FLAG_SECONDARY,
     FLAG_SUPPLEMENTARY,
     FLAG_UNMAPPED,
@@ -100,7 +100,7 @@ class TestBamReader:
         assert classes["r4"] not in (classes["r1"], classes["r3"])
 
     def test_evaluator_integration(self, bam_path, tmp_path):
-        from ngspeciesid_tpu.eval import evaluate
+        from ngspeciesid.eval import evaluate
 
         classes = classes_from_ref_names(bam_path)
         clusters = {"r1": 0, "r2": 0, "r3": 0, "r4": 1}

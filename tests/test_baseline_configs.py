@@ -7,9 +7,9 @@ import sys
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.cli import main as cli_main
-from ngspeciesid_tpu.eval import evaluate, read_clusters_tsv
-from ngspeciesid_tpu.io.fastx import read_fastx
+from ngspeciesid.cli import main as cli_main
+from ngspeciesid.eval import evaluate, read_clusters_tsv
+from ngspeciesid.io.fastx import read_fastx
 
 
 @pytest.fixture(scope="module")

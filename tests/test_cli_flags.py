@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.cli import args_to_config, build_parser
-from ngspeciesid_tpu.config import Config
-from ngspeciesid_tpu.io.fastx import read_fastx
-from ngspeciesid_tpu.pipeline import load_read_array
-from ngspeciesid_tpu.parallel.merge import batch_list
-from ngspeciesid_tpu.preprocess import score_and_sort
+from ngspeciesid.cli import args_to_config, build_parser
+from ngspeciesid.config import Config
+from ngspeciesid.io.fastx import read_fastx
+from ngspeciesid.pipeline import load_read_array
+from ngspeciesid.parallel.merge import batch_list
+from ngspeciesid.preprocess import score_and_sort
 
 
 def _mk_fastq(tmp_path, rng, n=30, lmin=100, lmax=400):
@@ -48,10 +48,10 @@ class TestParser:
             p.parse_args(["--fastq", "x", "--medaka", "--racon"])
 
     def test_validation_w_less_than_k(self):
-        from ngspeciesid_tpu.cli import main
+        from ngspeciesid.cli import main
         assert main(["--fastq", "x", "--outfolder", "o", "--k", "30", "--w", "20"]) == 1
 
-    def test_tpu_extension_flags(self):
+    def test_extension_flags(self):
         p = build_parser()
         cfg = args_to_config(p.parse_args(
             ["--fastq", "x", "--outfolder", "o", "--resume", "--profile"]))
@@ -124,7 +124,7 @@ class TestBatchList:
 
 class TestMedakaFastqOutput:
     def test_fastq_flag_writes_fastq(self, tmp_path, rng):
-        from ngspeciesid_tpu.cli import main
+        from ngspeciesid.cli import main
         # clusterable reads: noisy copies of one template
         template = "".join("ACGT"[c] for c in rng.integers(0, 4, size=300))
         fq = tmp_path / "in.fastq"

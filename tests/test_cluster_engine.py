@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.config import Config
-from ngspeciesid_tpu.cluster.engine import GapPassTable, reads_to_clusters
-from ngspeciesid_tpu.cluster.store import build_store
-from ngspeciesid_tpu.ops.score import batch_scores
-from ngspeciesid_tpu.utils.ptable import load_p_table, p_table_as_matrix
-from ngspeciesid_tpu.utils.phred import qual_bytes
+from ngspeciesid.config import Config
+from ngspeciesid.cluster.engine import GapPassTable, reads_to_clusters
+from ngspeciesid.cluster.store import build_store
+from ngspeciesid.ops.score import batch_scores
+from ngspeciesid.utils.ptable import load_p_table, p_table_as_matrix
+from ngspeciesid.utils.phred import qual_bytes
 
 from .oracle.cluster import cluster_reads as oracle_cluster
 

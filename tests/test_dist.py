@@ -13,18 +13,18 @@ import threading
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.cluster.engine import GapPassTable
-from ngspeciesid_tpu.cluster.store import build_store
-from ngspeciesid_tpu.config import Config
-from ngspeciesid_tpu.parallel.dist import (
+from ngspeciesid.cluster.engine import GapPassTable
+from ngspeciesid.cluster.store import build_store
+from ngspeciesid.config import Config
+from ngspeciesid.parallel.dist import (
     LocalComm,
     ThreadWorld,
     _decode_results,
     _encode_results,
     distributed_clustering,
 )
-from ngspeciesid_tpu.parallel.merge import merge_tree_clustering
-from ngspeciesid_tpu.utils.ptable import load_p_table, p_table_as_matrix
+from ngspeciesid.parallel.merge import merge_tree_clustering
+from ngspeciesid.utils.ptable import load_p_table, p_table_as_matrix
 
 from .test_cluster_engine import simulate_reads, to_read_array
 
@@ -138,7 +138,7 @@ def _run_distributed_devices(read_array, cfg_kwargs, n_ranks):
     """Like _run_distributed but over DeviceWorld: the exchange is a real
     XLA all_gather across the n_ranks-device mesh (conftest forces 8
     virtual CPU devices), not a shared-memory slot swap."""
-    from ngspeciesid_tpu.parallel.dist import DeviceWorld
+    from ngspeciesid.parallel.dist import DeviceWorld
 
     world = DeviceWorld(n_ranks)
     results = [None] * n_ranks
@@ -169,7 +169,7 @@ def _run_distributed_devices(read_array, cfg_kwargs, n_ranks):
 
 
 class TestDeviceCollectives:
-    """The distributed driver over REAL XLA collectives (VERDICT r2 item 4):
+    """The distributed driver over REAL XLA collectives:
     DeviceWorld rendezvouses the ranks and runs shard_map(lax.all_gather)
     over the device mesh for every exchange."""
 
@@ -197,11 +197,13 @@ class TestDeviceCollectives:
 
 
 def spawn_jaxcomm_workers(n_ranks: int, out_dir, timeout_s: float = 300.0,
-                          sorted_fastq: str = "", with_stats: bool = False):
+                          sorted_fastq: str = "", with_stats: bool = False,
+                          platform: str = "cpu"):
     """Spawn ``n_ranks`` REAL OS processes running tests/jaxcomm_worker.py
-    under ``jax.distributed.initialize`` + gloo CPU collectives; returns the
-    per-rank (clusters, alive) results.  Shared by the pytest below and by
-    __graft_entry__.dryrun_multichip."""
+    under ``jax.distributed.initialize``; returns the per-rank
+    (clusters, alive) results.  ``platform`` "cpu" joins the ranks with
+    gloo CPU collectives; "cuda" gives rank r the card r alone.  Shared by
+    the pytest below and by chip_smoke.py --multi-gpu."""
     import json
     import os
     import socket
@@ -214,20 +216,28 @@ def spawn_jaxcomm_workers(n_ranks: int, out_dir, timeout_s: float = 300.0,
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
+    root = os.path.dirname(os.path.dirname(worker))
     env = dict(os.environ)
-    env["JAX_PLATFORMS"] = "cpu"
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
-    # each worker is a fresh single-device CPU world; drop any inherited
-    # compilation-cache dir contention risk-free (cache is shared-safe, keep)
+    env["JAX_PLATFORMS"] = platform
+    if platform == "cpu":
+        env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
+    else:
+        env.pop("XLA_FLAGS", None)
+    # the worker runs as a script, so sys.path[0] is tests/: put the repo
+    # root on its path to import the package
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     procs, outs = [], []
     for r in range(n_ranks):
+        if platform != "cpu":
+            env = dict(env, CUDA_VISIBLE_DEVICES=str(r))   # one card each
         out = os.path.join(str(out_dir), f"jaxcomm_rank{r}.json")
         outs.append(out)
         argv = [sys.executable, worker, str(r), str(n_ranks), str(port), out]
         if sorted_fastq:
             argv.append(sorted_fastq)
         procs.append(subprocess.Popen(
-            argv, env=env, cwd=os.path.dirname(os.path.dirname(worker)),
+            argv, env=env, cwd=root,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE))
     try:
         for r, p in enumerate(procs):
@@ -247,13 +257,13 @@ def spawn_jaxcomm_workers(n_ranks: int, out_dir, timeout_s: float = 300.0,
         if with_stats:
             item = item + ({k: d[k] for k in (
                 "wall_s", "sent_bytes", "recv_bytes", "max_payload_bytes",
-                "n_collectives")},)
+                "n_collectives", "device", "device_pairs")},)
         results.append(item)
     return results
 
 
 class TestJaxCommMultiProcess:
-    """JaxComm over the REAL multi-process transport (VERDICT r3 item 2):
+    """JaxComm over the REAL multi-process transport:
     N OS processes join a jax.distributed coordinator, the exchange is
     multihost_utils.process_allgather over gloo, and every rank's full
     distributed-clustering result must equal the single-host merge tree."""
@@ -274,13 +284,13 @@ class TestJaxCommMultiProcess:
         gloo collectives; every rank's result must equal the single-host
         merge tree, and the collective codec must carry megabyte-class
         payloads.  Timed; walls and payload sizes land in the test log."""
-        pool = "/root/bench_data/pool100k.fastq"
+        pool = os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), ".bench_data", "pool100k.fastq")
         if not os.path.isfile(pool):
-            pool = os.path.expanduser("~/.cache/ngtpu_bench/pool100k.fastq")
-        if not os.path.isfile(pool):
-            pytest.skip("100k bench pool not present")
-        from ngspeciesid_tpu.config import Config
-        from ngspeciesid_tpu.preprocess import score_and_sort
+            pytest.skip("100k bench pool not present (python bench.py "
+                        "generates it)")
+        from ngspeciesid.config import Config
+        from ngspeciesid.preprocess import score_and_sort
         from .jaxcomm_worker import run_driver
 
         (tmp_path / "sorted").mkdir()

@@ -3,15 +3,15 @@
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.config import Config
-from ngspeciesid_tpu.ops.edit import IUPAC_PAIRS, infix_search
-from ngspeciesid_tpu.consensus.stage import (
+from ngspeciesid.config import Config
+from ngspeciesid.ops.edit import IUPAC_PAIRS, infix_search
+from ngspeciesid.consensus.stage import (
     find_barcode_locations,
     get_universal_tails,
     read_barcodes,
     remove_barcodes,
 )
-from ngspeciesid_tpu.utils.seqs import reverse_complement, seq_bytes
+from ngspeciesid.utils.seqs import reverse_complement, seq_bytes
 
 
 def brute_force_infix(query: str, target: str, eq) -> int:

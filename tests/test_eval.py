@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.eval import (
+from ngspeciesid.eval import (
     adjusted_rand_index,
     cluster_size_stats,
     evaluate,

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.ops.mapping import map_reads_to_center, write_paf
-from ngspeciesid_tpu.utils.seqs import reverse_complement_bytes
+from ngspeciesid.ops.mapping import map_reads_to_center, write_paf
+from ngspeciesid.utils.seqs import reverse_complement_bytes
 
 from .test_poa import make_template, noisy_copy
 
@@ -65,8 +65,8 @@ def test_batched_mapping_matches_per_read(rng):
     """map_reads_to_center's vectorized chain pass must reproduce the
     per-read map_read path field-for-field (including None verdicts and
     the '+'-wins-ties strand rule)."""
-    from ngspeciesid_tpu.ops.mapping import map_read, map_reads_to_center
-    from ngspeciesid_tpu.utils.seqs import reverse_complement_bytes
+    from ngspeciesid.ops.mapping import map_read, map_reads_to_center
+    from ngspeciesid.utils.seqs import reverse_complement_bytes
 
     acgt = np.frombuffer(b"ACGT", np.uint8)
     center = acgt[rng.integers(0, 4, 800)]
@@ -89,7 +89,7 @@ def test_batched_mapping_matches_per_read(rng):
         if i % 3 == 0:
             r = reverse_complement_bytes(r)
         reads.append(r)
-    from ngspeciesid_tpu.ops.minimizers import alphabet_ranks
+    from ngspeciesid.ops.minimizers import alphabet_ranks
 
     rank_of, rank_bits = alphabet_ranks(np.frombuffer(b"ACGT", np.uint8))
     got = map_reads_to_center(center, reads)

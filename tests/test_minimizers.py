@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.ops.minimizers import (
+from ngspeciesid.ops.minimizers import (
     alphabet_ranks,
     batch_minimizers,
     kmer_codes,
     sequence_minimizers,
 )
-from ngspeciesid_tpu.utils.seqs import seq_bytes
+from ngspeciesid.utils.seqs import seq_bytes
 
 from .oracle.minimizers import minimizers as oracle_minimizers
 

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu import native
-from ngspeciesid_tpu.ops.align import (
+from ngspeciesid import native
+from ngspeciesid.ops.align import (
     block_stats_batch,
     identity_batch,
     sg_align_batch,
@@ -91,19 +91,19 @@ class TestStatsDispatchParity:
         assert got == pytest.approx(want, abs=0.0)
 
     def test_env_override(self, rng, monkeypatch):
-        from ngspeciesid_tpu.ops import align as align_mod
+        from ngspeciesid.ops import align as align_mod
         monkeypatch.setenv("NGSID_STATS_BACKEND", "host")
         assert align_mod.stats_backend_default() == "host"
         monkeypatch.delenv("NGSID_STATS_BACKEND")
-        assert align_mod.stats_backend_default() in ("native", "pallas", "host")
+        assert align_mod.stats_backend_default() in ("native", "device", "host")
 
 
 class TestReadErrorStats:
     """read_error_stats_native must equal the numpy accumulation bit-for-bit."""
 
     def test_bit_identical(self, rng):
-        from ngspeciesid_tpu.cluster.store import _full_error_rate, _hpol_error_rate
-        from ngspeciesid_tpu.utils.phred import PHRED_TO_P_CAPPED
+        from ngspeciesid.cluster.store import _full_error_rate, _hpol_error_rate
+        from ngspeciesid.utils.phred import PHRED_TO_P_CAPPED
 
         seqs, quals = [], []
         for _ in range(64):
@@ -120,12 +120,12 @@ class TestReadErrorStats:
             assert fe[i] == _full_error_rate(quals[i]), i
 
     def test_chunked_path(self, rng):
-        from ngspeciesid_tpu.utils.phred import PHRED_TO_P_CAPPED
+        from ngspeciesid.utils.phred import PHRED_TO_P_CAPPED
 
         seqs = [rng.integers(65, 69, size=50).astype(np.uint8) for _ in range(40)]
         quals = [rng.integers(33, 90, size=50).astype(np.uint8) for _ in range(40)]
         a = native.read_error_stats_native(seqs, quals, PHRED_TO_P_CAPPED)
-        import ngspeciesid_tpu.native as nat
+        import ngspeciesid.native as nat
         # force chunking by monkeying the threshold via tiny slices
         b0, b1 = [], []
         for s in range(0, 40, 7):
@@ -145,9 +145,9 @@ class TestStage1StatsNative:
         return seqs, quals
 
     def test_bit_identical_to_numpy(self, rng):
-        from ngspeciesid_tpu.ops.score import batch_error_rates, batch_scores
-        from ngspeciesid_tpu.utils.phred import PHRED_TO_P, PHRED_TO_P_CAPPED
-        from ngspeciesid_tpu.utils.seqs import hpol_compress_bytes
+        from ngspeciesid.ops.score import batch_error_rates, batch_scores
+        from ngspeciesid.utils.phred import PHRED_TO_P, PHRED_TO_P_CAPPED
+        from ngspeciesid.utils.seqs import hpol_compress_bytes
 
         k = 13
         seqs, quals = self._mk_reads(rng, 64)
@@ -163,8 +163,8 @@ class TestStage1StatsNative:
         assert hl.tolist() == [hpol_compress_bytes(s).size for s in seqs]
 
     def test_chunked_path(self, rng):
-        from ngspeciesid_tpu.ops.score import batch_scores
-        from ngspeciesid_tpu.utils.phred import PHRED_TO_P, PHRED_TO_P_CAPPED
+        from ngspeciesid.ops.score import batch_scores
+        from ngspeciesid.utils.phred import PHRED_TO_P, PHRED_TO_P_CAPPED
 
         k = 9
         seqs, quals = self._mk_reads(rng, 3, lo=18, hi=60)
@@ -178,7 +178,7 @@ class TestStage1StatsNative:
 class TestMinimizersNative:
     @pytest.mark.parametrize("k,w", [(13, 20), (15, 50), (5, 9), (3, 3)])
     def test_matches_numpy_engine(self, rng, k, w):
-        from ngspeciesid_tpu.ops.minimizers import (
+        from ngspeciesid.ops.minimizers import (
             alphabet_ranks, sequence_minimizers)
 
         rank_of, rank_bits = alphabet_ranks(
@@ -195,7 +195,7 @@ class TestMinimizersNative:
             assert gp.tolist() == wp.tolist()
 
     def test_below_k_yields_empty(self):
-        from ngspeciesid_tpu.ops.minimizers import alphabet_ranks
+        from ngspeciesid.ops.minimizers import alphabet_ranks
 
         rank_of, rank_bits = alphabet_ranks(
             np.frombuffer(b"ACGT", dtype=np.uint8))
@@ -277,7 +277,7 @@ class TestGuardPage:
 
 
 def test_hpol_compress_native_matches_numpy(rng):
-    from ngspeciesid_tpu import native
+    from ngspeciesid import native
 
     if not native.available():
         pytest.skip("native engine unavailable")

@@ -5,18 +5,18 @@ import os
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.models.polisher import neural_polish_round
-from ngspeciesid_tpu.models.train import load_params, mutate, ACGT
+from ngspeciesid.models.polisher import neural_polish_round
+from ngspeciesid.models.train import load_params, mutate, ACGT
 
 MODEL = os.path.join(os.path.dirname(__file__), "..",
-                     "ngspeciesid_tpu", "data", "polisher_gru.npz")
+                     "ngspeciesid", "data", "polisher_gru.npz")
 
 pytestmark = pytest.mark.skipif(not os.path.isfile(MODEL),
                                 reason="trained polisher params not present")
 
 
 def edit_distance(a, b):
-    from ngspeciesid_tpu.ops.edit import _dp_rows
+    from ngspeciesid.ops.edit import _dp_rows
     return int(_dp_rows(a, b, anchored=True)[b.size])
 
 
@@ -45,7 +45,7 @@ class TestNeuralPolish:
         assert ok >= 4
 
     def test_cli_medaka_model_flag(self, tmp_path, rng):
-        from ngspeciesid_tpu.cli import main
+        from ngspeciesid.cli import main
         template = "".join("ACGT"[c] for c in rng.integers(0, 4, size=300))
         fq = tmp_path / "in.fastq"
         with open(fq, "w") as f:
@@ -60,7 +60,7 @@ class TestNeuralPolish:
         cons = list(out.glob("medaka_cl_id_*/consensus.fasta"))
         assert len(cons) == 1
         seq = open(cons[0]).read().splitlines()[1]
-        from ngspeciesid_tpu.utils.seqs import seq_bytes
+        from ngspeciesid.utils.seqs import seq_bytes
         assert edit_distance(seq_bytes(seq), seq_bytes(template)) <= 2
 
 
@@ -69,26 +69,26 @@ class TestMedakaModelSemantics:
     prove-or-demote eval (scripts/eval_polisher.py)."""
 
     def test_empty_is_deterministic(self):
-        from ngspeciesid_tpu.consensus.stage import _load_neural_polisher
+        from ngspeciesid.consensus.stage import _load_neural_polisher
         assert _load_neural_polisher("") is None
 
     def test_medaka_model_name_maps_to_caller(self):
-        from ngspeciesid_tpu.consensus.stage import _load_neural_polisher
+        from ngspeciesid.consensus.stage import _load_neural_polisher
         assert _load_neural_polisher("r941_min_high_g360") is None
         assert _load_neural_polisher("r103_min_high_g345") is None
 
     def test_npz_path_loads_gru(self):
         import os
-        from ngspeciesid_tpu.consensus.stage import _load_neural_polisher
+        from ngspeciesid.consensus.stage import _load_neural_polisher
         path = os.path.join(os.path.dirname(__file__), "..",
-                            "ngspeciesid_tpu", "data", "polisher_gru.npz")
+                            "ngspeciesid", "data", "polisher_gru.npz")
         got = _load_neural_polisher(path)
         assert got is not None
         params, fn = got
         assert callable(fn) and params
 
     def test_unknown_string_errors(self):
-        from ngspeciesid_tpu.consensus.stage import _load_neural_polisher
+        from ngspeciesid.consensus.stage import _load_neural_polisher
         with pytest.raises(ValueError):
             _load_neural_polisher("definitely/not/a/model.bin")
 
@@ -100,9 +100,9 @@ class TestPolisherAccuracyGrid:
         # never improves on it (full grid: scripts/eval_polisher.py)
         from scripts.eval_polisher import run_grid
         import os
-        from ngspeciesid_tpu.models.train import load_params
+        from ngspeciesid.models.train import load_params
         path = os.path.join(os.path.dirname(__file__), "..",
-                            "ngspeciesid_tpu", "data", "polisher_gru.npz")
+                            "ngspeciesid", "data", "polisher_gru.npz")
         params = load_params(path)
         rows = run_grid(params, n_templates=3, tlen=400, seed=7)
         for depth, e, d1, d2, dg in rows:

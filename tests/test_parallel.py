@@ -5,8 +5,8 @@ import pytest
 
 import jax
 
-from ngspeciesid_tpu.config import Config
-from ngspeciesid_tpu.ops.align import sg_align_batch
+from ngspeciesid.config import Config
+from ngspeciesid.ops.align import sg_align_batch
 
 
 def rand_seq(rng, n):
@@ -17,13 +17,13 @@ class TestMergeTreeOnVirtualShards:
     def test_shard_count_matches_cores(self, rng):
         # merge-tree clustering with nr_cores=8 on synthetic data mirrors the
         # reference's parallel path (schedule tested e2e in test_pipeline_e2e)
-        from ngspeciesid_tpu.ops.score import batch_scores
-        from ngspeciesid_tpu.utils.phred import qual_bytes
+        from ngspeciesid.ops.score import batch_scores
+        from ngspeciesid.utils.phred import qual_bytes
         from .test_cluster_engine import run_engine, simulate_reads, to_read_array
-        from ngspeciesid_tpu.cluster.store import build_store
-        from ngspeciesid_tpu.cluster.engine import GapPassTable
-        from ngspeciesid_tpu.parallel.merge import merge_tree_clustering
-        from ngspeciesid_tpu.utils.ptable import load_p_table, p_table_as_matrix
+        from ngspeciesid.cluster.store import build_store
+        from ngspeciesid.cluster.engine import GapPassTable
+        from ngspeciesid.parallel.merge import merge_tree_clustering
+        from ngspeciesid.utils.ptable import load_p_table, p_table_as_matrix
 
         records = simulate_reads(rng, n_templates=3, reads_per=12)
         read_array = to_read_array(records)

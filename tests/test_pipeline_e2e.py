@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.cli import main as cli_main
-from ngspeciesid_tpu.io.fastx import read_fastx
+from ngspeciesid.cli import main as cli_main
+from ngspeciesid.io.fastx import read_fastx
 
 
 def _fasta_seq(path):
@@ -93,8 +93,8 @@ class TestMultiSpeciesAccuracy:
     template (best orientation — RC-merge keeps the bigger side's strand)."""
 
     def test_three_species_consensus(self, rng, tmp_path):
-        from ngspeciesid_tpu.ops.edit import _dp_rows
-        from ngspeciesid_tpu.utils.seqs import reverse_complement
+        from ngspeciesid.ops.edit import _dp_rows
+        from ngspeciesid.utils.seqs import reverse_complement
 
         from .test_poa import make_template, noisy_copy
 
@@ -144,9 +144,8 @@ class TestExitCodeContract:
         whatever backend the machine defaults to (reference .travis.yml:33-36).
 
         Runs as a REAL subprocess with the conftest's JAX_PLATFORMS=cpu
-        override removed, so on a TPU host this exercises the plugin-teardown
-        path that used to SIGABRT (exit 134) when the prewarm daemon thread
-        was cancelled mid-PJRT-call at interpreter exit (VERDICT r4 weak #1).
+        override removed, so on a GPU host it exercises the device DP and
+        the process teardown after it.
         """
         import subprocess
         import sys
@@ -155,11 +154,11 @@ class TestExitCodeContract:
         env.pop("JAX_PLATFORMS", None)
         out = tmp_path / "out"
         proc = subprocess.run(
-            [sys.executable, "-m", "ngspeciesid_tpu", "--ont",
+            [sys.executable, "-m", "ngspeciesid", "--ont",
              "--fastq", sample_fastq, "--outfolder", str(out),
              "--consensus", "--racon", "--t", "1"],
             env=env, capture_output=True, text=True, timeout=900,
-            cwd="/root/repo",
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         )
         assert proc.returncode == 0, (
             f"CLI exited {proc.returncode}\nstderr tail:\n"

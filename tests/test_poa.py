@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.ops.poa import msa_consensus_batch, polish_round
-from ngspeciesid_tpu.utils.seqs import seq_bytes
+from ngspeciesid.ops.poa import msa_consensus_batch, polish_round
+from ngspeciesid.utils.seqs import seq_bytes
 
 
 def make_template(rng, n):
@@ -29,7 +29,7 @@ def noisy_copy(rng, t, err):
 
 
 def edit_distance(a: np.ndarray, b: np.ndarray) -> int:
-    from ngspeciesid_tpu.ops.edit import _dp_rows
+    from ngspeciesid.ops.edit import _dp_rows
     return int(_dp_rows(a, b, anchored=True)[b.size])
 
 
@@ -132,8 +132,8 @@ class TestPileupNativeParity:
 
     @pytest.mark.parametrize("with_quals", [True, False])
     def test_stats_bit_identical(self, rng, with_quals, monkeypatch):
-        from ngspeciesid_tpu import native
-        from ngspeciesid_tpu.ops.poa import pileup_stats
+        from ngspeciesid import native
+        from ngspeciesid.ops.poa import pileup_stats
 
         if not native.available():
             pytest.skip("no native engine")
@@ -148,7 +148,7 @@ class TestPileupNativeParity:
         assert got.ins_votes == want.ins_votes
 
     def test_polish_round_identical(self, rng, monkeypatch):
-        from ngspeciesid_tpu import native
+        from ngspeciesid import native
 
         if not native.available():
             pytest.skip("no native engine")
@@ -173,9 +173,9 @@ class TestAnchoredWindows:
         return t, reads, quals
 
     def test_windowed_stats_bit_identical_backends(self, rng, monkeypatch):
-        from ngspeciesid_tpu import native
-        from ngspeciesid_tpu.ops.mapping import map_reads_to_center
-        from ngspeciesid_tpu.ops.poa import pileup_stats, polish_windows
+        from ngspeciesid import native
+        from ngspeciesid.ops.mapping import map_reads_to_center
+        from ngspeciesid.ops.poa import pileup_stats, polish_windows
 
         if not native.available():
             pytest.skip("no native engine")
@@ -217,8 +217,8 @@ class TestAnchoredWindows:
 
 class TestOrientation:
     def test_orient_reads_flips_rc(self, rng):
-        from ngspeciesid_tpu.ops.poa import orient_reads
-        from ngspeciesid_tpu.utils.seqs import reverse_complement_bytes
+        from ngspeciesid.ops.poa import orient_reads
+        from ngspeciesid.utils.seqs import reverse_complement_bytes
 
         t = make_template(rng, 700)
         fw = [noisy_copy(rng, t, 0.06)[0] for _ in range(6)]
@@ -232,8 +232,8 @@ class TestOrientation:
         assert edit_distance(polished, t) == 0
 
     def test_orientation_quals_flipped(self, rng):
-        from ngspeciesid_tpu.ops.poa import orient_reads
-        from ngspeciesid_tpu.utils.seqs import reverse_complement_bytes
+        from ngspeciesid.ops.poa import orient_reads
+        from ngspeciesid.utils.seqs import reverse_complement_bytes
 
         t = make_template(rng, 500)
         r, q = noisy_copy(rng, t, 0.05)
@@ -250,8 +250,8 @@ class TestDraftCapNeutrality:
         # column with ALL reads.  Adversarial depth profile: error rates
         # RISE with rank, so the capped draft sees only the cleanest reads
         # while the uncapped draft folds in the noisy tail.
-        from ngspeciesid_tpu.ops.edit import _dp_rows
-        from ngspeciesid_tpu.ops.poa import msa_consensus_batch, polish_round
+        from ngspeciesid.ops.edit import _dp_rows
+        from ngspeciesid.ops.poa import msa_consensus_batch, polish_round
 
         t = make_template(rng, 500)
         reads, quals = [], []

@@ -38,7 +38,7 @@ pytestmark = pytest.mark.skipif(
 # ---------------------------------------------------------------------------
 
 def _moves_to_cigar(moves: np.ndarray, a: np.ndarray, b: np.ndarray) -> str:
-    from ngspeciesid_tpu.ops.align import DIAG, UP
+    from ngspeciesid.ops.align import DIAG, UP
 
     i = j = 0
     ops = []
@@ -85,7 +85,7 @@ def _parasail_stub() -> types.ModuleType:
         return (int(match), int(mismatch))
 
     def sg_trace_scan_16(s1, s2, gap_open, gap_ext, matrix):
-        from ngspeciesid_tpu.ops.align import DIAG, LEFT, UP, sg_align_batch
+        from ngspeciesid.ops.align import DIAG, LEFT, UP, sg_align_batch
 
         match, mismatch = matrix
         a = np.frombuffer(s1.encode(), np.uint8)
@@ -141,7 +141,7 @@ def ref():
 
 
 def _simulated_pool(rng, path, n_per=60, length=420, n_species=2, err=0.08):
-    from ngspeciesid_tpu.utils.seqs import reverse_complement
+    from ngspeciesid.utils.seqs import reverse_complement
 
     from .test_poa import make_template, noisy_copy
 
@@ -170,8 +170,8 @@ class TestStage1AgainstReference:
             quality_threshold=7.0, k=13)
         ref.get_sorted.main(args)
 
-        from ngspeciesid_tpu.config import Config
-        from ngspeciesid_tpu.preprocess import score_and_sort
+        from ngspeciesid.config import Config
+        from ngspeciesid.preprocess import score_and_sort
 
         our_out = tmp_path / "ours"
         our_out.mkdir()
@@ -194,7 +194,7 @@ class TestStage1AgainstReference:
 
 class TestClusteringAgainstReference:
     def _run_both(self, ref, tmp_path, fastq):
-        from ngspeciesid_tpu.cli import main as cli_main
+        from ngspeciesid.cli import main as cli_main
 
         out = tmp_path / "ours"
         rc = cli_main(["--ont", "--fastq", fastq, "--outfolder", str(out),

@@ -52,8 +52,8 @@ def _edlib_stub():
     def align(query, target, mode="HW", task="locations", k=-1,
               additionalEqualities=None):
         assert mode == "HW" and task == "locations"
-        from ngspeciesid_tpu.ops.edit import infix_search
-        from ngspeciesid_tpu.utils.seqs import seq_bytes
+        from ngspeciesid.ops.edit import infix_search
+        from ngspeciesid.utils.seqs import seq_bytes
 
         res = infix_search(seq_bytes(query), seq_bytes(target), int(k))
         if res is None:
@@ -68,9 +68,9 @@ def _edlib_stub():
 def _our_run_spoa(reads_path, spoa_out_file, spoa_path):
     """Draft consensus via our batched POA — the same primitive and draft
     cap our consensus stage uses when a polish pass follows."""
-    from ngspeciesid_tpu.io.fastx import read_fastx_bytes
-    from ngspeciesid_tpu.ops.poa import msa_consensus_batch
-    from ngspeciesid_tpu.utils.seqs import bytes_to_str
+    from ngspeciesid.io.fastx import read_fastx_bytes
+    from ngspeciesid.ops.poa import msa_consensus_batch
+    from ngspeciesid.utils.seqs import bytes_to_str
 
     seqs = [seq for _, seq, _ in read_fastx_bytes(reads_path)]
     cons = msa_consensus_batch([seqs], max_reads=30)[0]
@@ -79,10 +79,10 @@ def _our_run_spoa(reads_path, spoa_out_file, spoa_path):
 
 def _polish_like_our_stage(center: str, reads_file: str, quality_weighted):
     """The exact polish our stage's medaka/racon branches run."""
-    from ngspeciesid_tpu.io.fastx import read_fastx_bytes
-    from ngspeciesid_tpu.ops.poa import orient_reads, polish_round
-    from ngspeciesid_tpu.utils.seqs import bytes_to_str, seq_bytes
-    from ngspeciesid_tpu.consensus.stage import _polish_subset
+    from ngspeciesid.io.fastx import read_fastx_bytes
+    from ngspeciesid.ops.poa import orient_reads, polish_round
+    from ngspeciesid.utils.seqs import bytes_to_str, seq_bytes
+    from ngspeciesid.consensus.stage import _polish_subset
 
     seqs, quals = [], []
     for _, seq, qual in read_fastx_bytes(reads_file):
@@ -183,7 +183,7 @@ UNIVERSAL_TAIL_RC = "GAAGATAGAGCGACAGGCAAGT"   # revcomp of 2_R_rc
 def _tailed_pool(rng, path, n_per=40, length=360, n_species=2, err=0.07):
     """Pool whose templates carry the universal tails, to exercise the
     trimmer and the post-polish recheck."""
-    from ngspeciesid_tpu.utils.seqs import reverse_complement
+    from ngspeciesid.utils.seqs import reverse_complement
 
     from .test_poa import make_template, noisy_copy
 
@@ -208,7 +208,7 @@ def _tailed_pool(rng, path, n_per=40, length=360, n_species=2, err=0.07):
 def _reference_stage4(ref4, tmp_path, fastq, cli_args, ref_args_extra):
     """Run the reference pipeline stages 1..4 in-process (shimmed) and our
     CLI on the same input; return (ref_centers, ref_outfolder, our_out)."""
-    from ngspeciesid_tpu.cli import main as cli_main
+    from ngspeciesid.cli import main as cli_main
 
     our_out = tmp_path / "ours"
     rc = cli_main(["--ont", "--fastq", fastq, "--outfolder", str(our_out),

@@ -6,14 +6,14 @@ import shutil
 
 import pytest
 
-from ngspeciesid_tpu.artifacts import (
+from ngspeciesid.artifacts import (
     ArtifactCache,
     file_digest,
     load_clusters,
     save_clusters,
     stage_key,
 )
-from ngspeciesid_tpu.cli import main as cli_main
+from ngspeciesid.cli import main as cli_main
 
 SAMPLE = "/root/reference/test/sample_h1.fastq"
 

@@ -5,12 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from ngspeciesid_tpu.config import Config
-from ngspeciesid_tpu.io.fastx import read_fastx
-from ngspeciesid_tpu.ops.score import batch_error_rates, batch_scores, score_single
-from ngspeciesid_tpu.preprocess import score_and_sort
-from ngspeciesid_tpu.utils.seqs import hpol_compress, hpol_compressed_qual_bytes, seq_bytes
-from ngspeciesid_tpu.utils.phred import qual_bytes
+from ngspeciesid.config import Config
+from ngspeciesid.io.fastx import read_fastx
+from ngspeciesid.ops.score import batch_error_rates, batch_scores, score_single
+from ngspeciesid.preprocess import score_and_sort
+from ngspeciesid.utils.seqs import hpol_compress, hpol_compressed_qual_bytes, seq_bytes
+from ngspeciesid.utils.phred import qual_bytes
 
 from .oracle import stage1 as oracle
 
